@@ -1,6 +1,6 @@
 // rtbvh native runtime: asset I/O (OBJ+MTL loader, BMP reader/writer).
 //
-// TPU-native counterpart of the reference's native asset layer
+// Counterpart of the reference's native asset layer
 // (reference: ObjectFileLoader.cpp:212-468 Load_Geometry, :77-210
 // Material_File; SaveBMP.cpp:3-62; Image.cpp:35-61 loadImage).  The
 // reference parses OBJ/MTL and decodes images in C++ before uploading to

@@ -17,9 +17,13 @@ in 'perspective' mode.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from .core.types import Camera, Rays
+
+# f32 matmuls may run in TF32 on a GPU; the goldens assume true f32/f64
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def look_at_lh(eye, at, up, dtype=jnp.float32):
@@ -37,9 +41,9 @@ def look_at_lh(eye, at, up, dtype=jnp.float32):
             jnp.array([xaxis[2], yaxis[2], zaxis[2], 0.0], dtype),
             jnp.array(
                 [
-                    -jnp.dot(xaxis, eye),
-                    -jnp.dot(yaxis, eye),
-                    -jnp.dot(zaxis, eye),
+                    -jnp.dot(xaxis, eye, precision=HIGHEST),
+                    -jnp.dot(yaxis, eye, precision=HIGHEST),
+                    -jnp.dot(zaxis, eye, precision=HIGHEST),
                     1.0,
                 ],
                 dtype,
@@ -78,7 +82,7 @@ def camera_matrices(cam: Camera, width: int, height: int):
     proj = perspective_fov_lh(
         cam.fov, jnp.asarray(height, dtype) / width, cam.near, cam.far, dtype
     )
-    wvp = view @ proj
+    wvp = jnp.matmul(view, proj, precision=HIGHEST)
     return wvp, view
 
 
@@ -87,9 +91,8 @@ def transform_points(points, m):
     (reference parity: MortonCodes.hlsl:3-7 takes (float3)mul(...)).
 
     Runs once per frame, replacing the reference's per-leaf-visit
-    transform (quirk Q7).  Written as per-column math, NOT a matmul: a
-    [n,3]@[3,3] matmul measured 26.7 ms (vs sub-ms) on TPU — minor-dim-3
-    operands hit XLA's worst tiling path."""
+    transform (quirk Q7).  Written as per-column math, not a matmul, so
+    it is exact f32 on every backend."""
     x, y, z = points[:, 0], points[:, 1], points[:, 2]
     cols = [
         x * m[0, k] + y * m[1, k] + z * m[2, k] + m[3, k] for k in range(3)
@@ -129,11 +132,11 @@ def tile_order(width: int, height: int, tile: int):
     """Static permutation putting rays in (tile x tile)-pixel tile-major
     order, plus its inverse.
 
-    Rays that traverse together should be spatially coherent: the Pallas
-    traversal kernels advance a whole lane block in lock-step, so the
-    block's cost is the union of its rays' tree paths.  Row-major order
-    puts 256+ pixels of ONE scanline in a block (a long skinny frustum);
-    tile order packs a 16x16 pixel square — a much tighter path union.
+    Rays that traverse together should be spatially coherent: a block of
+    rays in the traversal kernel loops until its slowest ray is done, so
+    the block's cost follows the union of its rays' tree paths.
+    Row-major order puts one scanline in a block (a long skinny
+    frustum); tile order packs a pixel square — a tighter path union.
     This is the ray-coherence analog of the reference's 15x15-pixel
     threadgroup dispatch (reference: Graphics.cpp:788-792).
 
@@ -156,8 +159,7 @@ def tile_order(width: int, height: int, tile: int):
 
 
 def permute_rays(rays: Rays, perm) -> Rays:
-    """Apply a ray permutation (SoA column gathers — [R, 3]-minor gathers
-    are the slow path on TPU, see pipeline.py build_bvh)."""
+    """Apply a ray permutation (one 1-D gather per column)."""
     o = rays.origin
     d = rays.direction
     return Rays(
@@ -170,11 +172,10 @@ def structured_tile_shape(width: int, height: int, tile: int):
     """(th, tw) for the reshape-based tile path, or None.
 
     A tile permutation whose tile dims divide the frame is a pure
-    reshape+transpose — measured ~0-2 ms at 2M rays vs ~15 ms PER
-    2M-row gather (scripts/tpu_perm_layout.py); a tiled frame pays 10
-    such gathers (6 ray columns + 4 color channels).  Prefer a square
-    ``tile`` x ``tile``; otherwise halve the tile height until it
-    divides (1080p with tile=16 -> 8x16 = 128 px, exactly one vreg row).
+    reshape+transpose instead of 10 full-frame gathers (6 ray columns +
+    4 color channels).  Prefer a square ``tile`` x ``tile``; otherwise
+    halve the tile height until it divides (1080p with tile=16 -> 8x16 =
+    128 px, one traversal-kernel block).
     """
     if width % tile != 0:
         return None
@@ -191,12 +192,8 @@ def tile_flat(x, width: int, height: int, th: int, tw: int,
     """[height*width] row-major -> (th x tw)-tile-major, as a pure
     reshape+transpose (see structured_tile_shape).
 
-    ``order`` sets how TILES are sequenced: 'row' walks tiles along x
-    (a 2048-ray kernel block then spans a wide th x 16*tw strip);
-    'col' walks them down y first, so consecutive tiles STACK — the
-    same block becomes a ~square 16*th x tw region, a tighter tree-path
-    union (traversal probe at 102k tris: 9% fewer micro-steps,
-    BENCH_NOTES round 5 item 7)."""
+    ``order`` sets how TILES are sequenced: 'row' walks tiles along x;
+    'col' walks them down y first, so consecutive tiles stack."""
     t4 = x.reshape(height // th, th, width // tw, tw)
     if order == "col":
         return t4.transpose(2, 0, 1, 3).reshape(height * width)
@@ -263,5 +260,6 @@ def orbit(cam: Camera, d_yaw: float, d_pitch: float) -> Camera:
     # row-vector rotation matrices, as XMMatrixRotationY / RotationX
     rot_y = jnp.array([[cy, 0, -sy], [0, 1, 0], [sy, 0, cy]], cam.eye.dtype)
     rot_x = jnp.array([[1, 0, 0], [0, cp, sp], [0, -sp, cp]], cam.eye.dtype)
-    eye = (cam.eye - cam.at) @ (rot_x @ rot_y) + cam.at
+    rot = jnp.matmul(rot_x, rot_y, precision=HIGHEST)
+    eye = jnp.matmul(cam.eye - cam.at, rot, precision=HIGHEST) + cam.at
     return cam.replace(eye=eye)

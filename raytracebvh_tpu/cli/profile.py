@@ -3,7 +3,7 @@
 Usage:
     python -m raytracebvh_tpu.cli.profile [--obj Test.obj] [--width 512]
         [--height 512] [--bounces 1] [--backend jnp] [--ray-chunk 0]
-        [--trace /tmp/xla-trace]
+        [--trace xla-trace]
 
 Replaces the reference's stdout FPS counter (reference:
 Graphics.cpp:65-92) with a real breakdown of the dispatch chain.
@@ -22,15 +22,15 @@ def main(argv=None):
     p.add_argument("--height", type=int, default=512)
     p.add_argument("--bounces", type=int, default=1)
     p.add_argument("--backend",
-                   choices=["auto", "jnp", "pallas", "hbm"], default="auto",
+                   choices=["auto", "jnp", "triton"], default="auto",
                    help="traversal backend (same choices as cli.render)")
-    p.add_argument("--sort", choices=["lax", "bitonic", "radix"],
+    p.add_argument("--sort", choices=["lax", "radix"],
                    default="lax")
     p.add_argument("--ray-chunk", type=int, default=0)
     p.add_argument("--iters", type=int, default=5)
     p.add_argument("--trace", default=None,
                    help="also capture an XLA profiler trace to this dir")
-    p.add_argument("--platform", choices=["default", "cpu", "tpu"],
+    p.add_argument("--platform", choices=["default", "cpu", "gpu"],
                    default="default",
                    help="force the JAX platform (see cli.render)")
     args = p.parse_args(argv)

@@ -2,22 +2,33 @@
 
 These replace the reference's HLSL struct declarations and D3D12 buffer
 machinery (reference: RayTraceGlobal.hlsl:17-118 declares Box/Ray/Node/
-Vertex/Material plus the b0/b1 cbuffers and t0-t5/u0-u5 bindings).  On TPU
+Vertex/Material plus the b0/b1 cbuffers and t0-t5/u0-u5 bindings).  Here
 everything is a struct-of-arrays pytree: XLA owns placement and the
 "descriptor heap" is just Python attribute access.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 
-@struct.dataclass
+def _pytree(cls):
+    """Frozen dataclass registered as a pytree whose fields are all
+    children, with a ``replace(**changes)`` method."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = lambda self, **kw: dataclasses.replace(self, **kw)
+    return jax.tree_util.register_dataclass(
+        cls, data_fields=[f.name for f in dataclasses.fields(cls)],
+        meta_fields=[],
+    )
+
+
+@_pytree
 class Materials:
     """Struct-of-arrays material table.
 
@@ -40,7 +51,7 @@ class Materials:
         return self.ambient.shape[0]
 
 
-@struct.dataclass
+@_pytree
 class Scene:
     """Deduplicated triangle mesh + materials + textures.
 
@@ -69,7 +80,7 @@ class Scene:
         return self.verts.shape[0]
 
 
-@struct.dataclass
+@_pytree
 class Camera:
     """Orbit camera (reference: Graphics.h:200-203, Graphics.cpp:44-53).
 
@@ -98,7 +109,7 @@ class Camera:
         )
 
 
-@struct.dataclass
+@_pytree
 class BVH:
     """Linear BVH in struct-of-arrays form.
 
@@ -112,7 +123,7 @@ class BVH:
     (reference: RayTraceTraversal.hlsl:9,114-117) we precompute *skip links*
     (``entry_link`` = next node when the current box is hit, ``skip_link`` =
     next node when it is missed or after a leaf is tested).  Traversal then
-    needs no per-lane stack at all — ideal for the TPU's vector units.
+    needs no per-lane stack at all.
 
     ``prim`` maps a leaf to its original face id (-1 for padding leaves;
     the reference instead leaves garbage morton codes in padding slots,
@@ -139,20 +150,8 @@ class BVH:
     # n0|n1|n2 xyz (9-17), uv0|uv1|uv2 (18-23), ambient (24-27),
     # diffuse (28-31), specular (32-35), shininess (36), optical_density
     # (37), alpha (38), tex_id as an integer-valued float (39).  One row
-    # gather per shaded ray replaces ~30 per-channel gathers (XLA TPU
-    # gathers pay per-op, not per-byte — measured 10x).
+    # gather per shaded ray instead of ~30 per-channel gathers.
     leaf_attrs: Any  # [n, 40]
-    # Optional precomputed HBM-sweep node table (ops/traverse_hbm.
-    # pack_table_rank17, [nw, win/128, 24, 128]).  Packing costs ~90 ms at
-    # 131k leaves, and one frame traverses up to 3x (primary, bounce,
-    # shadow) — the pipeline packs ONCE per build (pipeline.shade_rays)
-    # and every hbm traversal reuses it.  None = pack on demand.
-    hbm_table: Any = None
-    # DFS pre-order rank of every node ([2n] int32), computed in the
-    # build from the leaf ranges with one 2-key sort
-    # (ops/bvh.preorder_ranks_from_ranges).  The hbm table pack consumes
-    # it; None = derive from the entry links by pointer doubling.
-    rank: Any = None
 
     @property
     def n_leaves(self) -> int:
@@ -163,7 +162,7 @@ class BVH:
         return self.n_leaves
 
 
-@struct.dataclass
+@_pytree
 class Rays:
     """A batch of rays (reference: RayTraceGlobal.hlsl:22-28)."""
 
@@ -175,7 +174,7 @@ class Rays:
         return 1.0 / self.direction
 
 
-@struct.dataclass
+@_pytree
 class HitRecord:
     """Traversal result per ray (reference ``ColTri``,
     RayTraceGlobal.hlsl:79-85), with the triangle stored as a leaf id

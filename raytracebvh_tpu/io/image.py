@@ -24,8 +24,13 @@ def load_texture(path: str) -> np.ndarray:
             [rgb, np.full(rgb.shape[:2] + (1,), 255, np.uint8)], axis=-1
         )
     else:
-        from PIL import Image
-
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise ImportError(
+                f"loading {ext} textures needs Pillow (pip install pillow); "
+                "BMP textures load without it"
+            ) from e
         with Image.open(path) as im:
             rgba = np.asarray(im.convert("RGBA"))
     return rgba.astype(np.float32) / 255.0

@@ -5,7 +5,7 @@ The reference builds the hierarchy with one thread per internal node
 and fits AABBs bottom-up with global atomics gating a per-node climb
 (reference: BVHConstructP2.hlsl:11-36, self-described "HIGHLY DIVERGENT").
 
-TPU-native re-design (round 2: the whole build is loop-free in tree depth):
+Data-parallel re-design (the whole build is loop-free in tree depth):
   * The Karras searches are vectorized over *all* internal nodes at once;
     the exponential/binary searches become fixed-trip-count ``fori_loop``s
     over gather + select — no divergence, no scalar threads.
@@ -179,13 +179,12 @@ def karras_children_rmq(codes):
         the direction-sided argmin
 
     The tables are built with shifted elementwise mins (no gathers), and
-    the descent is CHUNKED: the gather cost on TPU is per-row, so one
-    [*, 16]-row gather serves FOUR descent levels — the row holds the
-    block-min probe for every step-combination of the chunk's levels
-    (2^j probes for the j-th level), and the in-chunk walk is pure
-    elementwise selects.  ~12 gathers total (2 descents x ceil(18/4)
-    chunks + a 2-gather RMQ) vs ~63 heavier rounds for the
-    exponential+binary searches (measured 95 -> 10 ms at 131k leaves).
+    the descent is CHUNKED: one [*, 16]-row gather serves FOUR descent
+    levels — the row holds the block-min probe for every step-combination
+    of the chunk's levels (2^j probes for the j-th level), and the
+    in-chunk walk is pure elementwise selects.  ~12 gathers total (2
+    descents x ceil(18/4) chunks + a 2-gather RMQ) vs ~63 heavier rounds
+    for the exponential+binary searches.
 
     Parity: bit-identical output to ``karras_children``
     (tests/test_bvh.py::test_rmq_matches_search).
@@ -363,7 +362,7 @@ def fit_aabbs(node_lo, node_hi, leaf_bbmin, leaf_bbmax):
     (BVHConstructP2.hlsl:11-36) — and, unlike a level-synchronous sweep,
     has NO sequential dependence on tree depth: a sparse table of
     power-of-two range minima is built in ceil(log2(n)) rounds of shifted
-    elementwise mins (pure VPU, no gathers), then every internal node is
+    elementwise mins (no gathers), then every internal node is
     answered with two row gathers (RMQ: min of the two 2^k blocks
     covering [lo, hi]).  Max queries ride along negated so one table
     serves all six channels.
@@ -496,9 +495,8 @@ def preorder_ranks_from_ranges(node_lo, node_hi, n: int):
     (an ancestor on the same left spine).  Pre-order is therefore exactly
     the lexicographic sort by (lo ascending, hi descending) — no
     pointer-jumping over the entry links (``preorder_ranks``; that costs
-    ceil(log2(2n)) rounds of two [2n] gathers, ~25 ms at 131k leaves vs
-    ~2 ms for the fused on-chip sort).  (lo, hi) pairs are unique: ranges
-    of distinct nodes are never identical.
+    ceil(log2(2n)) rounds of two [2n] gathers).  (lo, hi) pairs are
+    unique: ranges of distinct nodes are never identical.
 
     Returns (rank, inv): rank[id] = pre-order position, inv[r] = node id
     at rank r; the unused topology slot (id 2n-1) is pinned to rank 2n-1.

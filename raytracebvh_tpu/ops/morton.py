@@ -45,6 +45,23 @@ def morton_code(p):
     return ex | (ey << 1) | (ez << 2)
 
 
+def _quantize(offset, extent):
+    """floor(1024 * offset / extent) clamped to [0, 1023] — the grid cell
+    of MortonCodes.hlsl — computed so that every backend returns the same
+    integer.  A GPU's f32 division is not correctly rounded, so the
+    division only seeds the answer; the largest k with
+    fl(k * extent) <= fl(1024 * offset) is then settled by products and
+    compares, which round the same everywhere (the seed is within one of
+    it).  No product here feeds an add, so no backend can contract one
+    into a fused multiply-add."""
+    extent = jnp.where(extent > 0, extent, 1.0)  # flat axis: cell 0
+    num = offset * 1024.0
+    q = jnp.floor(num / extent)
+    q = jnp.where((q + 1.0) * extent <= num, q + 1.0, q)
+    q = jnp.where(q * extent > num, q - 1.0, q)
+    return jnp.clip(q, 0.0, 1023.0).astype(jnp.uint32)
+
+
 def triangle_leaves(verts_t, indices, scene_min, scene_max):
     """Per-triangle morton codes and AABBs from transformed vertices.
 
@@ -59,29 +76,26 @@ def triangle_leaves(verts_t, indices, scene_min, scene_max):
     Returns:
       codes [nf] uint32, bbmin [nf,3], bbmax [nf,3], centroid [nf,3].
     """
-    # Row-gather layout: XLA TPU gathers pay per-ROW, not per-byte, and
-    # minor-dim-3 arrays hit the worst tiling path (26-29 ms vs sub-ms at
-    # nf = 3072).  So the vertex table is padded to 4-wide rows and each
-    # corner is ONE row gather ([nf, 4]) — 3 gathers total instead of 9
-    # per-coordinate 1-D gathers (measured 7.7 -> ~4 ms at 102k tris).
-    # All math then runs on 1-D column slices of the gathered rows.
+    # Row-gather layout: the vertex table is padded to 4-wide rows and
+    # each corner is ONE row gather ([nf, 4]) — 3 gathers total instead of
+    # 9 per-coordinate 1-D gathers.  All math then runs on 1-D column
+    # slices of the gathered rows.
     i0, i1, i2 = indices[0::3], indices[1::3], indices[2::3]
     vrows = jnp.pad(verts_t, ((0, 0), (0, 1)))  # [nv, 4]
     r0, r1, r2 = vrows[i0], vrows[i1], vrows[i2]  # [nf, 4] each
-    mins, maxs, cens = [], [], []
+    mins, maxs, cens, scaled = [], [], [], []
     for k in range(3):
         c0, c1, c2 = r0[:, k], r1[:, k], r2[:, k]
         mins.append(jnp.minimum(jnp.minimum(c0, c1), c2))
         maxs.append(jnp.maximum(jnp.maximum(c0, c1), c2))
         cens.append((c0 + c1 + c2) / 3.0)
-    unit = [
-        (cens[k] - scene_min[k]) / (scene_max[k] - scene_min[k])
-        for k in range(3)
-    ]
-    scaled = [
-        jnp.clip(unit[k] * 1024.0, 0.0, 1023.0).astype(jnp.uint32)
-        for k in range(3)
-    ]
+        # the centroid's cell, from 3x its offset to the box corner: sums
+        # of differences only, so the centroid's division by 3 (a product
+        # after XLA's rewrite) cannot contract into a multiply-add on one
+        # backend and not on another
+        lo = scene_min[k]
+        off3 = (c0 - lo) + (c1 - lo) + (c2 - lo)
+        scaled.append(_quantize(off3, (scene_max[k] - lo) * 3.0))
     codes = (
         expand_bits10(scaled[0])
         | (expand_bits10(scaled[1]) << 1)

@@ -111,12 +111,10 @@ def normalize(v, eps=1e-30):
 # ---------------------------------------------------------------------------
 # Structure-of-arrays variants.
 #
-# TPU tiles the minor-most axis of every buffer to 128 lanes, so per-ray
-# [R, 3] / [R, 4] arrays are padded 42x / 32x in HBM — fatal for a
-# bandwidth-bound path over megapixel ray batches.  These variants take
-# and return tuples of 1-D [R] component arrays instead; the math is
-# op-for-op identical to the AoS versions above (same order, same
-# primitives), so results match bit-for-bit.
+# These take and return tuples of 1-D [R] component arrays instead of
+# [R, 3] / [R, 4] arrays; the math is op-for-op identical to the AoS
+# versions above (same order, same primitives), so results match
+# bit-for-bit.
 
 def cross3(a, b):
     ax, ay, az = a
@@ -175,12 +173,9 @@ def barycentric_weights3(tri0, tri1, tri2, point):
 def _texel_dims(tex_hw, tid, dtype):
     """Per-ray texture (h, w) WITHOUT per-row gathers where possible.
 
-    ``tex_hw[tid, 0]`` / ``tex_hw[tid, 1]`` are two R-row gathers — XLA
-    TPU prices gathers per ROW, so on a 2M-ray frame these two lookups
-    into a [T, 2] table cost tens of ms (round-5 bisect: the large-scene
-    "texture" stage was ~half these dim gathers).  Single-texture scenes
-    (both bench scenes) broadcast scalars instead; multi-texture scenes
-    pay ONE packed [R, 2] row gather."""
+    Single-texture scenes broadcast scalars instead of two R-row gathers
+    into the [T, 2] table; multi-texture scenes pay ONE packed [R, 2] row
+    gather."""
     if tex_hw.shape[0] == 1:
         return (jnp.asarray(tex_hw[0, 0], dtype),
                 jnp.asarray(tex_hw[0, 1], dtype))
@@ -192,8 +187,7 @@ def sample_texture_planes(tex_planes, tex_hw, tex_id, u, v):
     """Bilinear wrap sample from channel-split texture planes.
 
     tex_planes: tuple of 4 [T, H, W] arrays (the channel-major form of
-    the [T, H, W, 4] stack — gathering a [R, 4] row per ray would pad
-    32x; four [R] gathers pad none).  Returns a 4-tuple of [R] channels;
+    the [T, H, W, 4] stack).  Returns a 4-tuple of [R] channels;
     tex_id -1 samples white.
     """
     tid = jnp.maximum(tex_id, 0)
@@ -236,8 +230,7 @@ def sample_texture_rows(tex_flat, tex_hw, tex_id, u, v, hmax, wmax):
 
     tex_flat: [T*hmax*wmax, 4] (= textures.reshape(-1, 4), a free
     reshape).  One [R, 4] row gather per texel corner instead of 16
-    per-channel gathers — XLA TPU gathers pay per-op, not per-byte.
-    Returns a 4-tuple of [R] channels; tex_id -1 samples white.  Values
+    per-channel gathers.  Returns a 4-tuple of [R] channels; tex_id -1 samples white.  Values
     identical to sample_texture / sample_texture_planes.
     """
     tid = jnp.maximum(tex_id, 0)
@@ -282,10 +275,8 @@ def pack_texture_quads(textures, tex_hw):
     wrap-neighborhood {(y,x), (y,x+1), (y+1,x), (y+1,x+1)} RGBA-major.
 
     Bilinear sampling then needs ONE [R, 16] row gather per sample instead
-    of four corner gathers (XLA TPU gathers pay per-op, not per-byte:
-    measured 8.2 ms per [R, 4] row gather at R = 2M, so 4 corners cost
-    33 ms/pass; one quad row gather costs ~the same 8 ms total).  The pack
-    itself is rolls + a reshape — bandwidth-trivial, differentiable
+    of four corner gathers.  The pack itself is rolls + a reshape —
+    bandwidth-trivial, differentiable
     (texture training grads flow through it), and done once per frame.
 
     Textures smaller than the padded stack wrap at their TRUE size
@@ -308,73 +299,13 @@ def pack_texture_quads(textures, tex_hw):
     return quads.reshape(t * h * w, 4 * c)
 
 
-# Texel-tile window geometry for the windowed (coherent HBM) texture
-# gather: one 128-texel window = an 8-row x 16-col TILE of the texture,
-# not 128 consecutive row-major texels.  Screen-space-local ray blocks
-# then touch few windows regardless of how the mesh ROTATES uv onto the
-# screen — the round-5 dense probe measured p90 = 126 row-major windows
-# per 2048-ray block (u mapped along screen y) vs ~8-32 tiled.
-TILE_Y, TILE_X = 8, 16
-
-from .gather_pallas import _round_up  # noqa: E402 (shared pad helper)
-
-
-def pack_texture_quads_tiled(textures, tex_hw):
-    """[T, H, W, 4] -> [nw, 16, 128] window-major quad table with
-    TILE_Y x TILE_X texel-tile windows (for ops/gather_hbm.
-    gather_rows_packed; index math in tiled_texel_index).
-
-    Differentiable: pure pad/reshape/transpose over pack_texture_quads'
-    rolls, so texture-training gradients flow through unchanged."""
-    t, h, w, c4 = textures.shape
-    quads = pack_texture_quads(textures, tex_hw).reshape(t, h, w, 16)
-    hp, wp = _round_up(h, TILE_Y), _round_up(w, TILE_X)
-    q = jnp.zeros((t, hp, wp, 16), quads.dtype).at[:, :h, :w].set(quads)
-    q = q.reshape(t, hp // TILE_Y, TILE_Y, wp // TILE_X, TILE_X, 16)
-    q = q.transpose(0, 1, 3, 2, 4, 5)  # [t, ty, tx, 8, 16, 16ch]
-    q = q.reshape(t * (hp // TILE_Y) * (wp // TILE_X), TILE_Y * TILE_X, 16)
-    return q.transpose(0, 2, 1)  # [nw, 16ch, 128]
-
-
-def tiled_texel_index(tid, xi, yi, hmax, wmax):
-    """Packed row index of texel (tid, yi, xi) in the
-    pack_texture_quads_tiled layout (window*128 + lane)."""
-    tiles_x = _round_up(wmax, TILE_X) // TILE_X
-    tiles_per_tex = (_round_up(hmax, TILE_Y) // TILE_Y) * tiles_x
-    wid = tid * tiles_per_tex + (yi // TILE_Y) * tiles_x + (xi // TILE_X)
-    lane = (yi % TILE_Y) * TILE_X + (xi % TILE_X)
-    return wid * 128 + lane
-
-
-def pack_quads_u32(tq_u8):
-    """[nw, 16, 128] uint8 quads (quantize_quads_u8 of the tiled pack)
-    -> [nw, 4, 128] int32: each corner's RGBA packed little-endian into
-    one 32-bit lane.  The windowed gather kernel's cost is one lane
-    shuffle PER CHANNEL per served window — 4 channels instead of 16 is
-    4x less vector work (and a 4x smaller DMA); the unpack after the
-    gather is 3 shift-and-mask ops per corner.  Bit-exact with the
-    uint8 path (same quantization)."""
-    q = tq_u8.astype(jnp.uint32)
-    packed = [
-        q[:, 4 * g]
-        | (q[:, 4 * g + 1] << 8)
-        | (q[:, 4 * g + 2] << 16)
-        | (q[:, 4 * g + 3] << 24)
-        for g in range(4)
-    ]
-    return jax.lax.bitcast_convert_type(
-        jnp.stack(packed, axis=1), jnp.int32
-    )
-
-
 def quantize_quads_u8(tex_quads):
     """[*, 16] float quads in [0,1] -> uint8 (UNORM8).
 
     The reference's textures ARE 8-bit UNORM (BMP/JPG via DevIL,
     Image.cpp:35-61; the sampler reads UNORM8), so for 8-bit-sourced
     textures this is bit-exact with the float path (k/255 -> k -> k/255)
-    while the per-ray quad gather moves 16 bytes instead of 64 — the
-    texture gather is latency/bandwidth-bound on random HBM rows.
+    while the per-ray quad gather moves 16 bytes instead of 64.
     Not differentiable (int cast); use texture_dtype='float32' to train
     textures."""
     return jnp.round(tex_quads * 255.0).astype(jnp.uint8)
@@ -387,7 +318,7 @@ def sample_texture_quads(tex_quads, tex_hw, tex_id, u, v, hmax, wmax):
     wrap addressing, reference: RayTraceRender.hlsl:24-26, sampler
     Image.cpp:154-169); tex_id -1 samples white.  The u-floor(u) wrap puts
     x0 = floor(u*w - .5) in [-1, w-1], so wrap needs only a select, not an
-    integer mod (mod is several VPU ops; select is one)."""
+    integer mod."""
     tid = jnp.maximum(tex_id, 0)
     h, w = _texel_dims(tex_hw, tid, u.dtype)
     uu = u - jnp.floor(u)
@@ -402,44 +333,11 @@ def sample_texture_quads(tex_quads, tex_hw, tex_id, u, v, hmax, wmax):
     yi = y0.astype(jnp.int32)
     xi = jnp.where(xi < 0, xi + w.astype(jnp.int32), xi)
     yi = jnp.where(yi < 0, yi + h.astype(jnp.int32), yi)
-    # NB: a morton/Z-order-swizzled quad table was tried (round 3) and
-    # measured SLOWER end-to-end on device (fwd 354 vs 170 ms at 1080p on
-    # Image_Test.obj — the per-ray bit-interleave math plus the
-    # power-of-two-padded, ~2.6x larger table cost more than the layout
-    # bought); row-major is the one texture path.
-    if tex_quads.ndim == 3:
-        # windowed-packed table (texel-TILE windows,
-        # pack_texture_quads_tiled): coherent-window Pallas gather
-        # (ops/gather_hbm.py) — one opaque kernel instead of an XLA
-        # gather measured ~36 ms/pass on the dense frame's real texel
-        # stream
-        from .gather_hbm import gather_rows_packed
-
-        idxw = tiled_texel_index(tid, xi, yi, hmax, wmax)
-        if tex_quads.dtype == jnp.int32:
-            # u32-packed UNORM8 (pack_quads_u32): 4-channel gather +
-            # shift/mask unpack.  NB `/ 255.0` like every other UNORM8
-            # path — a `* (1/255)` constant differs by 1 ulp for 126 of
-            # the 256 byte values unless the backend folds division to
-            # reciprocal, and the u8 paths' bit-parity test relies on
-            # exact agreement.
-            qp = gather_rows_packed(tex_quads, idxw, 4)  # [4, R] i32
-            qu = jax.lax.bitcast_convert_type(qp, jnp.uint32)
-
-            def qc(k):
-                b = ((qu[k // 4] >> (8 * (k % 4))) & 0xFF)
-                return b.astype(u.dtype) / 255.0
-        else:
-            qcm = gather_rows_packed(tex_quads, idxw, 16)  # [16, R]
-            if qcm.dtype == jnp.uint8:
-                qcm = qcm.astype(u.dtype) / 255.0
-            qc = lambda k: qcm[k]
-    else:
-        flat = (tid * hmax + yi) * wmax + xi
-        q = tex_quads[flat]  # [R, 16] — the one gather
-        if q.dtype == jnp.uint8:  # UNORM8 path (see quantize_quads_u8)
-            q = q.astype(u.dtype) / 255.0
-        qc = lambda k: q[:, k]
+    flat = (tid * hmax + yi) * wmax + xi
+    q = tex_quads[flat]  # [R, 16] — the one gather
+    if q.dtype == jnp.uint8:  # UNORM8 path (see quantize_quads_u8)
+        q = q.astype(u.dtype) / 255.0
+    qc = lambda k: q[:, k]
     w00 = (1 - fx) * (1 - fy)
     w10 = fx * (1 - fy)
     w01 = (1 - fx) * fy

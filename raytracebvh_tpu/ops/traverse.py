@@ -3,11 +3,11 @@
 The reference traverses with a per-thread 32-entry stack and a DFS loop
 (reference: RayTraceTraversal.hlsl:106-193), re-transforming every leaf's
 three vertices by WVP on *every visit* (RayTraceTraversal.hlsl:146-148,
-quirk Q7).  On TPU both choices are wrong: per-lane stacks need dynamic
-per-lane indexing (scatter/gather into scratch) and the re-transform wastes
-bandwidth.
+quirk Q7).  In batched array code both choices are wrong: per-lane stacks
+need dynamic per-lane indexing (scatter/gather into scratch) and the
+re-transform wastes bandwidth.
 
-TPU-native design: all rays advance in lock-step through precomputed skip
+Array design: all rays advance in lock-step through precomputed skip
 links (see ops/bvh.py).  Each step is, for every live ray, a handful of
 gathers by node id plus pure vector math:
 
@@ -19,7 +19,8 @@ gathers by node id plus pure vector math:
 The visit order equals the reference's stack DFS whenever both children
 are hit; only the "right-only" case costs one extra box test.  Rays finish
 when they walk off the root's skip link (-1); finished lanes idle at node
--1 until the batch drains.
+-1 until the batch drains.  This is the plain reference walk and the CPU
+path; ops/traverse_gpu.py is the same walk as a per-ray GPU kernel.
 """
 
 from __future__ import annotations
@@ -91,10 +92,7 @@ def traverse(bvh: BVH, rays: Rays, epsilon: float, max_steps: int = 0) -> HitRec
     RayTraceTraversal.hlsl:157; recover it as ``bvh.prim[leaf]``).
 
     Layout note: everything inside the hot loop is 1-D component arrays
-    (structure-of-arrays).  TPU tiles the minor-most axis to 128 lanes,
-    so a gathered [R, 3] vector array is padded 128/3 = 42x in HBM; the
-    same data as three [R] gathers is padded ~0%.  This one property is
-    worth ~an order of magnitude on the traversal's bandwidth bill.
+    (structure-of-arrays).
     """
     n = bvh.n_leaves
     root = jnp.int32(n)

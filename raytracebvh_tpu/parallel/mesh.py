@@ -8,7 +8,7 @@ queue; SURVEY.md section 2.3).  Its two data-parallel axes — pixels/rays
   * ``rays``: the embarrassingly parallel axis; every device traces its
     tile of the image.  This is the framework's data-parallel axis.
   * ``geo``: geometry sharding; vertex/index arrays live sharded and are
-    all-gathered over ICI before traversal (BASELINE.md's
+    all-gathered over the device interconnect before traversal (BASELINE.md's
     "triangles replicated or sharded with an all-gather").
 
 Multi-host: call ``initialize_distributed()`` first (wraps
@@ -26,7 +26,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 RAYS_AXIS = "rays"
 GEO_AXIS = "geo"
-DCN_AXIS = "dcn"  # host boundary: collectives crossing it ride DCN, not ICI
+DCN_AXIS = "dcn"  # host boundary: collectives crossing it ride the host
+# network, not the in-host device links (NVLink)
 
 
 def initialize_distributed(**kwargs) -> None:
@@ -50,10 +51,10 @@ def make_mesh(n_devices: Optional[int] = None, geo: int = 1) -> Mesh:
 
 def make_host_mesh(geo: int = 1) -> Mesh:
     """A ('dcn', 'rays', 'geo') mesh: outer axis = host (process)
-    boundary, inner axes = each host's local devices over ICI.
+    boundary, inner axes = each host's local devices over NVLink.
 
-    Layout rule (SURVEY.md section 2.3 / the scaling-book recipe): the
-    bandwidth-hungry collectives must ride ICI, so 'geo' (geometry
+    Layout rule (SURVEY.md section 2.3): the bandwidth-hungry collectives
+    must stay inside a host, so 'geo' (geometry
     all-gather) and the first stage of the gradient reduction are inner
     axes; only the small cross-host gradient combine crosses 'dcn'.
     Rays shard over ('dcn', 'rays') together — embarrassingly parallel,

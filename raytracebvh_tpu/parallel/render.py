@@ -13,14 +13,14 @@ single-device pipeline:
 
   * ``render_geo_sharded`` — shard_map with *explicit* collectives:
     geometry arrays arrive sharded over the 'geo' axis and are
-    all-gathered over ICI before the local build+trace; each device then
+    all-gathered before the local build+trace; each device then
     traces only its ray tile.  This is the scaling path for scenes too
     large to replicate (BASELINE.md config 5).
 
 ``train_step_sharded`` runs the inverse-rendering objective with
 jax.grad *inside* shard_map: per-device gradients over the local ray tile
-are psum'd over the mesh — the gradient all-reduce rides ICI exactly like
-a data-parallel training step.
+are psum'd over the mesh — the gradient all-reduce of a data-parallel
+training step.
 """
 
 from __future__ import annotations
@@ -104,7 +104,7 @@ def render_geo_sharded(
     def _tile(scene_shard: Scene, wvp, wv, rays_tile: Rays):
         # Sharded LEAF STAGE: each device transforms only its vertex
         # shard and computes morton codes + leaf AABBs only for its face
-        # shard; the all-gathers ship *derived* leaf arrays over ICI
+        # shard; the all-gathers ship *derived* leaf arrays
         # (BASELINE.md: "triangles ... sharded with an all-gather"; the
         # reference has no multi-device path at all, SURVEY.md 2.3).
         # Only the sort/topology/fit/link assembly stays replicated.
@@ -117,7 +117,7 @@ def render_geo_sharded(
                                 wvp.astype(dtype))
         nt_l = transform_normals(scene_shard.normals.astype(dtype),
                                  wv.astype(dtype))
-        # scene AABB: local reduction + min/max all-reduce over ICI
+        # scene AABB: local reduction + min/max all-reduce
         smin_l, smax_l = morton_ops.scene_aabb(vt_l)
         smin = jax.lax.pmin(smin_l, GEO_AXIS)
         smax = jax.lax.pmax(smax_l, GEO_AXIS)
@@ -205,8 +205,8 @@ def train_step_sharded(
                 return jnp.mean((color - target_c) ** 2)
 
             loss, grads = jax.value_and_grad(local_loss)(params)
-            # gradient all-reduce: innermost (ICI) axes first so the
-            # bulk of the ring stays on-chip interconnect; the 'dcn'
+            # gradient all-reduce: innermost (in-host) axes first so the
+            # bulk of the ring stays on the device links; the 'dcn'
             # stage (host mesh) combines already-reduced values
             for ax in reversed(mesh.axis_names):
                 grads = jax.lax.pmean(grads, ax)

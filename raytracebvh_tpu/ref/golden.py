@@ -90,14 +90,21 @@ def mt_all(origin, direction, tris, epsilon=0.01):
     return np.where(ok, t, -1.0)
 
 
-def nearest_hit(origin, direction, tris, epsilon=0.01):
-    """Brute-force nearest hit: returns (hit [R], t [R], face [R])."""
-    t_all = mt_all(origin, direction, tris, epsilon)
-    masked = np.where(t_all > 0, t_all, np.inf)
-    face = np.argmin(masked, axis=1)
-    t = masked[np.arange(len(face)), face]
-    hit = np.isfinite(t)
-    return hit, np.where(hit, t, 0.0), face
+def nearest_hit(origin, direction, tris, epsilon=0.01, chunk=256):
+    """Brute-force nearest hit: returns (hit [R], t [R], face [R]).
+
+    Rays go through ``mt_all`` ``chunk`` at a time, so memory stays
+    [chunk, F] however many rays there are."""
+    outs = []
+    for s in range(0, max(len(origin), 1), chunk):
+        t_all = mt_all(origin[s:s + chunk], direction[s:s + chunk], tris,
+                       epsilon)
+        masked = np.where(t_all > 0, t_all, np.inf)
+        face = np.argmin(masked, axis=1)
+        t = masked[np.arange(len(face)), face]
+        hit = np.isfinite(t)
+        outs.append((hit, np.where(hit, t, 0.0), face))
+    return tuple(np.concatenate(x) for x in zip(*outs))
 
 
 # ---------------------------------------------------------------- shading
@@ -213,6 +220,17 @@ def render_golden(scene, eye, at, up, width, height, bounces=3, ortho_scale=4.0,
 
     background = np.asarray(background, np.float64)
 
+    def trace_live(o, d, live):
+        """nearest_hit for the live rays; dead rays report a miss (their
+        results are masked out by every consumer below)."""
+        hit = np.zeros(len(o), bool)
+        t = np.zeros(len(o))
+        face = np.zeros(len(o), np.int64)
+        if live.any():
+            hit[live], t[live], face[live] = nearest_hit(
+                o[live], d[live], tris, epsilon)
+        return hit, t, face
+
     def shade(o, d, hit, t, face, vis=None):
         pt = o + d * t[:, None]
         tp, tn, tu = tris[face], tri_nrm[face], tri_uv[face]
@@ -272,7 +290,7 @@ def render_golden(scene, eye, at, up, width, height, bounces=3, ortho_scale=4.0,
 
     for _ in range(bounces):
         live = intensity > 0.0
-        hit, t, face = nearest_hit(ro, rd, tris, epsilon)
+        hit, t, face = trace_live(ro, rd, live)
         pt, n_i, c_i, shin, _, _ = shade(ro, rd, hit, t, face)
         target = np.where(hit[:, None], c_i, background)
         lerped = color + intensity[:, None] * (target - color)
@@ -289,7 +307,7 @@ def render_golden(scene, eye, at, up, width, height, bounces=3, ortho_scale=4.0,
         rcolor = np.ones_like(color)
         for _ in range(bounces):
             live = q_int > 0.0
-            hit, t, face = nearest_hit(qo, qd, tris, epsilon)
+            hit, t, face = trace_live(qo, qd, live)
             pt, n_i, c_i, _, alpha, od = shade(qo, qd, hit, t, face)
             target = np.where(hit[:, None], c_i, background)
             lerped = rcolor + q_int[:, None] * (target - rcolor)

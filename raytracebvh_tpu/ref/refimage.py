@@ -1,6 +1,6 @@
 """Reproduction of the reference's one committed render artifact.
 
-``/root/reference/out.bmp`` (500x500) is NOT a shaded frame: it is the
+The reference's ``out.bmp`` (500x500) is NOT a shaded frame: it is the
 depth visualization written by the CPU golden model's scalar trace
 (reference: TestData.cpp:804-851 — ray origin ``(x - w/2, y - h/2, 0)``
 with NO ortho scale, direction (0,0,1), hit pixels = ``char(distance)``

@@ -1,24 +1,20 @@
 """Asset resolution.
 
 The reference hardcodes "Obj/Test.obj" (reference: Graphics.cpp:364).  We
-resolve the same asset names against RTBVH_OBJ_DIR (defaulting to the
-read-only reference checkout's Obj/ directory when present) and fall back
-to procedurally generated scenes otherwise.
+resolve the same asset names against the directory named by RTBVH_OBJ_DIR
+and the checkout's own ``assets/`` directory; ``None`` when absent.
+Procedural scenes (models/procedural.py) need no files at all.
 """
 
 from __future__ import annotations
 
 import os
 
-_DEFAULT_DIRS = (
-    os.environ.get("RTBVH_OBJ_DIR", ""),
-    "/root/reference/Obj",
-    os.path.join(os.path.dirname(__file__), "..", "..", "assets"),
-)
+_REPO_ASSETS = os.path.join(os.path.dirname(__file__), "..", "..", "assets")
 
 
 def find_asset(name: str) -> str | None:
-    for d in _DEFAULT_DIRS:
+    for d in (os.environ.get("RTBVH_OBJ_DIR", ""), _REPO_ASSETS):
         if not d:
             continue
         p = os.path.join(d, name)

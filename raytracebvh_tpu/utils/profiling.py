@@ -64,7 +64,7 @@ def stage_times(scene, camera, cfg, iters: int = 5) -> Dict[str, float]:
     morton (CS_MORTON_CODES), sort (32x CS_RADIX_SORT_P1/P2), topology
     (CS_BVH_CONSTRUCTION_P1), fit+links (CS_BVH_CONSTRUCTION_P2), trace
     (CS_RAY_TRACE_LAUNCH + CS_RAY_TRACE_REFLECTION), and the whole fused
-    frame.  Per-stage numbers include one HBM round trip per boundary
+    frame.  Per-stage numbers include one device-memory round trip per boundary
     that the fused frame doesn't pay, so they overstate the fused cost —
     use them for ratios, not absolutes.
     """

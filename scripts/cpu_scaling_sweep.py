@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Weak-scaling sweep on a virtual 8-device CPU mesh (same harness the
-driver's dryrun runs); writes /tmp/scaling_cpu.json, prints records.
+"""Weak-scaling sweep on a virtual 8-device CPU mesh; prints one line per
+mesh size.
 
 Run: python scripts/cpu_scaling_sweep.py [max_devices]
 """

@@ -66,3 +66,25 @@ def test_triangle_leaves():
         np.uint32,
     )
     np.testing.assert_array_equal(np.asarray(codes), want)
+
+
+def test_quantize_settles_the_division_exactly():
+    """The grid cell is the largest k with fl(k * extent) <= fl(1024 *
+    offset), whatever the rounding of the seeding division — so CPU and
+    GPU (whose f32 division is not correctly rounded) agree bit for bit."""
+    rng = np.random.default_rng(5)
+    ext = rng.uniform(0.5, 900.0, 4096).astype(np.float32)
+    off = (rng.uniform(0, 1, 4096) * ext).astype(np.float32)
+    off[:8] = ext[:8]  # the top face of the box lands in cell 1023
+    got = np.asarray(morton._quantize(jnp.asarray(off), jnp.asarray(ext)))
+    num = off * np.float32(1024)
+    want = np.floor(num.astype(np.float64) / ext.astype(np.float64))
+    for _ in range(2):  # settle with the same f32 products
+        up = (want + 1).astype(np.float32) * ext <= num
+        want = np.where(up, want + 1, want)
+        down = want.astype(np.float32) * ext > num
+        want = np.where(down, want - 1, want)
+    np.testing.assert_array_equal(got, np.clip(want, 0, 1023).astype(np.uint32))
+    assert (got[:8] == 1023).all()
+    # a flat axis quantizes to cell 0 instead of dividing by zero
+    assert int(morton._quantize(jnp.float32(0.0), jnp.float32(0.0))) == 0

@@ -59,10 +59,8 @@ def test_bmp_roundtrip(tmp_path):
 def test_read_reference_out_bmp():
     """The reference's committed output image parses (golden-image
     candidate; reference: out.bmp written by SaveBMP.cpp:3-62)."""
-    import os
-
-    p = "/root/reference/out.bmp"
-    if not os.path.isfile(p):
+    p = find_asset("out.bmp")
+    if p is None:
         pytest.skip("reference out.bmp not available")
     img = read_bmp(p)
     assert img.ndim == 3 and img.shape[2] == 3

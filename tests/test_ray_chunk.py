@@ -89,4 +89,4 @@ def test_unknown_traversal_backend_raises():
 
     cfg = RenderConfig(width=8, height=8, traversal_backend="pallas_pre")
     with pytest.raises(ValueError, match="unknown traversal_backend"):
-        resolve_traversal_backend(cfg, 100)
+        resolve_traversal_backend(cfg)

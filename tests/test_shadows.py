@@ -15,7 +15,6 @@ from raytracebvh_tpu.camera import camera_matrices
 from raytracebvh_tpu.core.types import Rays, scene_to_device
 from raytracebvh_tpu.models.procedural import random_triangles
 from raytracebvh_tpu.ops.traverse import traverse_any
-from raytracebvh_tpu.ops.traverse_pallas import traverse_any_pallas
 from raytracebvh_tpu.pipeline import build_bvh
 from raytracebvh_tpu.ref.golden import render_golden
 
@@ -92,16 +91,6 @@ def test_any_hit_vs_bruteforce():
     # everything else must agree exactly
     agree = np.asarray(occ) == brute
     assert agree.mean() > 0.99, f"agreement {agree.mean()}"
-
-
-def test_any_hit_pallas_parity():
-    """Pallas any-hit kernel (interpret mode on CPU) == XLA any-hit."""
-    bvh, rays, max_t = _any_hit_setup(n_tris=200, n_rays=300, seed=5)
-    occ_jnp = jax.jit(lambda b, r, m: traverse_any(b, r, 0.01, m))(
-        bvh, rays, max_t
-    )
-    occ_pl = traverse_any_pallas(bvh, rays, 0.01, max_t)
-    np.testing.assert_array_equal(np.asarray(occ_jnp), np.asarray(occ_pl))
 
 
 def test_shadow_grads_flow():

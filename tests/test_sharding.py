@@ -74,8 +74,9 @@ def test_train_step_sharded_grads_match():
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-6)
 
 
-def test_dryrun_multichip_entry():
-    """The driver-facing dry run must work for 8 virtual devices."""
+def test_dryrun_multichip_entry(tmp_path, monkeypatch):
+    """The multi-device dry run works on 8 virtual devices and writes
+    nothing into the working directory."""
     import importlib.util
     import os
 
@@ -85,7 +86,9 @@ def test_dryrun_multichip_entry():
     )
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    monkeypatch.chdir(tmp_path)
     mod.dryrun_multichip(8)
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_host_mesh_train_step_matches_flat():
@@ -142,29 +145,8 @@ def test_grad_chunks_overlapped_psum_matches():
                                    atol=1e-7)
 
 
-def test_predict_multihost_efficiency_model():
-    """The analytic DCN/ICI model: sane monotonic outputs at the target
-    config (4 hosts x 4 local chips)."""
-    from raytracebvh_tpu.parallel.scaling import predict_multihost_efficiency
-
-    scene, cam, cfg = _scene_cfg()
-    params = init_params(scene)
-    # 1080p-frame-scale step time (round-2 measured ~105 ms fwd+bwd)
-    pred = predict_multihost_efficiency(scene, params, 0.105,
-                                        hosts=4, local_devices=4, geo=2)
-    assert 0.0 < pred["efficiency_serial_bound"] <= 1.0
-    assert (pred["efficiency_overlapped_bound"]
-            >= pred["efficiency_serial_bound"])
-    # tiny params + tiny geometry: comm is micro-scale vs a 105 ms step
-    assert pred["efficiency_serial_bound"] > 0.8
-    # scaling hosts up only increases DCN bytes sublinearly
-    p8 = predict_multihost_efficiency(scene, params, 0.105,
-                                      hosts=8, local_devices=4, geo=2)
-    assert p8["dcn_bytes_per_device"] >= pred["dcn_bytes_per_device"]
-
-
 def test_geo_sharded_midsize_scene():
-    """Round-5 verdict item 5: the sharded leaf stage beyond toy scale —
+    """The sharded leaf stage beyond toy scale —
     4096 triangles (12288 sharded verts/indices per device pair), 128x128
     rays.  The geo all-gather ships ~344 kB of derived leaf arrays."""
     scene = scene_to_device(

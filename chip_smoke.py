@@ -139,18 +139,16 @@ def check_hits_vs_brute_force(host, bvh, rays, rec, width, height, n=2048,
                           "distance rtol 1e-5 vs float64 brute force")
 
 
-GRAD_TOLERANCE = (
-    "per gradient, >= 99% of elements within rtol 1e-3 + atol 1e-3*max|g|; "
-    "the material gradients (sums over many pixels) also relative L2 error "
-    "<= 1e-3.  Vertex gradients are local and steep at grazing hits, and "
-    "a few silhouette pixels flip when the two programs round differently "
-    "(the GPU contracts multiply-adds and divides inexactly), so their "
-    "relative L2 error is reported, not bounded")
+def grad_tolerance(vert_rel_l2):
+    return (
+        "per gradient, >= 99% of elements within rtol 1e-3 + atol "
+        "1e-3*max|g|; relative L2 error <= 1e-3 for the material gradients "
+        f"and <= {vert_rel_l2:g} for the vertex gradients")
 
 
-def compare_grads(got, want):
+def compare_grads(got, want, vert_rel_l2):
     """Per-field agreement of two InverseParams gradients (see
-    GRAD_TOLERANCE); raises on a breach, returns the statistics."""
+    grad_tolerance); raises on a breach, returns the statistics."""
     out = {}
     for name, a, b in zip(want._fields, got, want):
         a, b = np.asarray(a), np.asarray(b)
@@ -158,8 +156,8 @@ def compare_grads(got, want):
         close = float(np.isclose(a, b, rtol=1e-3,
                                  atol=1e-3 * np.abs(b).max()).mean())
         out[name] = dict(rel_l2=rel_l2, frac_close=close)
-        assert close >= 0.99, (name, out[name])
-        assert name == "vert_offsets" or rel_l2 <= 1e-3, (name, out[name])
+        bound = vert_rel_l2 if name == "vert_offsets" else 1e-3
+        assert close >= 0.99 and rel_l2 <= bound, (name, out[name], bound)
     return out
 
 
@@ -326,14 +324,16 @@ def phase_training():
         *jax.device_put((sc, cam), cpu), cfg_c))
     px_same = float((np.abs(img_g - img_c) <= 1e-4).all(-1).mean())
     np.testing.assert_allclose(gl, cl, rtol=1e-3)
-    grads = compare_grads(gg, cg)
+    # the two traversals round differently, so a few edge pixels see
+    # another triangle; CPU float32 vs float64 differs as much (8.7e-3)
+    grads = compare_grads(gg, cg, vert_rel_l2=5e-2)
     emit("training", adam_losses=losses, adam_step_ms=ts,
          large_tris=int(sc_l.num_faces), large_loss=float(loss_l),
          large_value_and_grad_ms=grad_ms,
          gpu_vs_cpu_256=dict(pixels_equal=px_same, loss_gpu=float(gl),
                              loss_cpu=float(cl), grads=grads),
          tolerance="GPU vs CPU at 256x256, camera matmuls at HIGHEST: loss "
-                   "rtol 1e-3; " + GRAD_TOLERANCE)
+                   "rtol 1e-3; " + grad_tolerance(5e-2))
 
 
 def phase_interactive():
@@ -362,23 +362,37 @@ def phase_interactive():
 
 def phase_kernel_vs_xla(dims):
     """The hand-written traversal kernel against XLA's while-loop walk at
-    1080p: primary (nearest-hit), shadow (any-hit) and the full frame."""
+    1080p: primary (nearest-hit), shadow (any-hit) and the full frame.
+    Both walks get the rays in the tile order the frame gives the kernel
+    (the XLA walk advances all rays in lock-step, so order is moot for
+    it); each frame runs its backend's 'auto' tiling."""
     import jax
     import jax.numpy as jnp
 
     from raytracebvh_tpu import Camera, RenderConfig, render_frame_jit
-    from raytracebvh_tpu.camera import camera_matrices
+    from raytracebvh_tpu.camera import (
+        camera_matrices,
+        structured_tile_shape,
+        tile_rays,
+    )
     from raytracebvh_tpu.core.types import Rays
     from raytracebvh_tpu.ops.traverse import traverse, traverse_any
     from raytracebvh_tpu.ops.traverse_gpu import traverse_any_gpu, traverse_gpu
-    from raytracebvh_tpu.pipeline import build_bvh, light_in_ray_space, make_rays
+    from raytracebvh_tpu.pipeline import (
+        build_bvh,
+        light_in_ray_space,
+        make_rays,
+        resolve_ray_tile,
+    )
 
     _, sc = scene(dims)
     cam = Camera.default()
     cfg = RenderConfig(width=W, height=H, bounces=1, enable_shadows=True)
     wvp, wv = camera_matrices(cam, W, H)
     bvh = jax.jit(lambda s: build_bvh(s, wvp, wv, cfg))(sc)
-    rays = make_rays(cam, cfg)
+    tile = resolve_ray_tile(cfg.replace(traversal_backend="triton"))
+    rays = tile_rays(make_rays(cam, cfg), W, H,
+                     *structured_tile_shape(W, H, tile))
 
     near = {"xla": jax.jit(lambda b, r: traverse(b, r, EPS)),
             "kernel": jax.jit(lambda b, r: traverse_gpu(b, r, EPS))}
@@ -403,7 +417,7 @@ def phase_kernel_vs_xla(dims):
     occ_agree = float((occ["kernel"] == occ["xla"]).mean())
     assert occ_agree > 0.9999, occ_agree
 
-    out = dict(tris=int(sc.num_faces), leaf_agree=leaf_agree,
+    out = dict(tris=int(sc.num_faces), ray_tile=tile, leaf_agree=leaf_agree,
                occlusion_agree=occ_agree)
     frames = {}
     for k, backend in (("xla", "jnp"), ("kernel", "triton")):
@@ -454,12 +468,14 @@ def phase_four_cards():
         lambda p: loss_fn(p, sc, cam, target, cfg)))
     loss_1, g_1 = vg_1(params)
     np.testing.assert_allclose(float(loss_4), float(loss_1), rtol=1e-5)
-    grads = compare_grads(g_4, g_1)
+    # the same kernel and hit ids on every card: only the summation order
+    # of the gradient differs
+    grads = compare_grads(g_4, g_1, vert_rel_l2=1e-2)
     emit("four_cards", mesh={"rays": 2, "geo": 2}, tris=int(sc.num_faces),
          image_pixels_equal=px_same, loss_4=float(loss_4),
          loss_1=float(loss_1), grads=grads,
          tolerance="pixels within 1e-4 on >= 99.99%; loss rtol 1e-5; "
-                   + GRAD_TOLERANCE)
+                   + grad_tolerance(1e-2))
 
 
 def main(argv=None):

@@ -114,7 +114,7 @@ def normalize(v, eps=1e-30):
 # These take and return tuples of 1-D [R] component arrays instead of
 # [R, 3] / [R, 4] arrays; the math is op-for-op identical to the AoS
 # versions above (same order, same primitives), so results match
-# bit-for-bit.
+# bit-for-bit, except that barycentric_weights3 signs its areas.
 
 def cross3(a, b):
     ax, ay, az = a
@@ -156,17 +156,24 @@ def refract3(d, n, eta):
 
 def barycentric_weights3(tri0, tri1, tri2, point):
     """Area-ratio weights (w0, w1, w2) at ``point``; components in,
-    components out (reference: RayTraceHelper.hlsl:12-35)."""
+    components out (reference: RayTraceHelper.hlsl:12-35).
+
+    The sub-triangle areas are signed (projected on the triangle's
+    normal) where the reference takes their lengths.  Inside the triangle
+    the two agree.  On an edge a length has no gradient, and just outside
+    one (where a hit lands when the traversal's rounding accepts it) it
+    folds back and its gradient flips sign; the signed area goes on
+    smoothly.  With lengths, two programs that round differently gave
+    vertex gradients further apart than the gradient's own norm."""
     v0 = sub3(tri0, point)
     v1 = sub3(tri1, point)
     v2 = sub3(tri2, point)
-    e01 = sub3(tri0, tri1)
-    e02 = sub3(tri0, tri2)
-    a0 = norm3(cross3(e01, e02))
-    a0 = jnp.where(a0 == 0.0, 1.0, a0)
-    w0 = norm3(cross3(v1, v2)) / a0
-    w1 = norm3(cross3(v2, v0)) / a0
-    w2 = norm3(cross3(v0, v1)) / a0
+    n = cross3(sub3(tri0, tri1), sub3(tri0, tri2))
+    nn = dot3(n, n)
+    nn = jnp.where(nn == 0.0, 1.0, nn)
+    w0 = dot3(cross3(v1, v2), n) / nn
+    w1 = dot3(cross3(v2, v0), n) / nn
+    w2 = dot3(cross3(v0, v1), n) / nn
     return w0, w1, w2
 
 

@@ -60,3 +60,19 @@ def test_triton_frame_on_cpu_raises():
                        traversal_backend="triton")
     with pytest.raises(ValueError, match="cannot run on platform"):
         render_frame(scene, Camera.default(jnp.float32), cfg)
+
+
+@pytest.mark.parametrize("tile,backend,platform,want", [
+    (-1, "auto", "gpu", 8),
+    (-1, "auto", "cpu", 0),
+    (-1, "jnp", "gpu", 0),
+    (16, "auto", "cpu", 16),
+    (0, "auto", "gpu", 0),
+])
+def test_ray_tile_resolves(tile, backend, platform, want):
+    """'auto' tile-orders the rays only for the GPU kernel; an explicit
+    tile size is kept on every platform."""
+    from raytracebvh_tpu.pipeline import resolve_ray_tile
+
+    cfg = RenderConfig(ray_tile=tile, traversal_backend=backend)
+    assert resolve_ray_tile(cfg, platform) == want

@@ -8,6 +8,7 @@ normals, and material colors, verified against finite differences.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from raytracebvh_tpu import Camera, RenderConfig, render_frame
 from raytracebvh_tpu.core.types import scene_to_device
@@ -134,3 +135,50 @@ def test_train_step_lr_takes_effect():
     assert da > 0 and db > 0
     # adam's first step is ~lr * sign(g): the two lrs must differ ~100x
     assert da > db * 10
+
+
+@pytest.mark.parametrize("dy", [1e-6, -1e-6])
+def test_shade_keeps_edge_hits_on_the_triangle_plane(dy):
+    """Whether a ray hits is traversal's decision.  The shading recompute
+    puts a hit ray that passes just outside the triangle's edge (dy < 0,
+    a hit only by the traversal's rounding) on the triangle's plane, like
+    one just inside, and its gradients stay finite and of the same size."""
+    from types import SimpleNamespace
+
+    from raytracebvh_tpu.core.types import HitRecord
+    from raytracebvh_tpu.pipeline import _shade_hit_soa
+
+    with jax.enable_x64(True):
+        scene = scene_to_device(
+            random_triangles(1, seed=0, with_texture=True), dtype=jnp.float64)
+        tri = jnp.array([[0.0, 0.0, 5.0], [1.0, 0.0, 5.0], [0.0, 1.0, 6.0]])
+        nrm = jnp.array([[0.0, 0.0, -1.0], [0.0, 0.6, -0.8], [0.6, 0.0, -0.8]])
+        mat = jnp.zeros(16).at[15].set(-1.0)  # tex_id -1: untextured
+        attrs = jnp.concatenate(
+            [tri.ravel(), nrm.ravel(), jnp.zeros(6), mat])[None]
+        one = jnp.ones(1, jnp.float64)
+        rec = HitRecord(hit=jnp.array([True]), distance=5.0 * one,
+                        leaf=jnp.array([0]))
+
+        def shade(attrs, y):
+            o3 = (0.3 * one, y * one, 0.0 * one)
+            d3 = (0.0 * one, 0.0 * one, one)
+            hit_loc, normal, *_ = _shade_hit_soa(
+                scene, SimpleNamespace(leaf_attrs=attrs), o3, d3, rec)
+            return hit_loc, normal
+
+        hit_loc, normal = shade(attrs, dy)
+        # the plane through the triangle: z = 5 + y
+        np.testing.assert_allclose(float(hit_loc[2][0]), 5.0 + dy, rtol=1e-12)
+        np.testing.assert_allclose(
+            [float(c[0]) for c in normal], [0.0, 0.18, -0.94], atol=1e-5)
+
+        def total(a, y):
+            hl, n = shade(a, y)
+            return sum(jnp.sum(c) for c in hl + n)
+
+        g = np.asarray(jax.grad(total)(attrs, dy))
+        g_in = np.asarray(jax.grad(total)(attrs, abs(dy)))
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(np.abs(g), np.abs(g_in), rtol=1e-4,
+                                   atol=1e-4)
